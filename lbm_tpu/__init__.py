@@ -1,13 +1,14 @@
-"""lbm_tpu — a TPU-native D2Q9-BGK lattice-Boltzmann engine.
+"""lbm_tpu — a D2Q9-BGK lattice-Boltzmann engine in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the
 OpenCL/C lid-driven-channel solver in ag14774/OpenCL-Lattice-Boltzmann
 (reference mounted at ``/root/reference``): same physics, same file
 contracts (``.params`` / obstacle ``.dat`` in, ``av_vels.dat`` /
 ``final_state.dat`` out, validated by the same checker protocol), designed
-TPU-first — one fused Pallas stencil kernel per timestep, the whole time
-loop compiled into a single on-chip XLA program, and multi-chip scaling via
-``shard_map`` row-sharding with per-step ICI halo exchange.
+for an NVIDIA GPU — one Pallas (Triton) step kernel per timestep, the whole
+time loop compiled into a single XLA program on the device, and
+multi-device scaling via ``shard_map`` sharding with per-step halo
+exchange.
 """
 
 from lbm_tpu.config import CANONICAL_PARAMS, LBMParams

@@ -1,8 +1,8 @@
 /* lbmio — native formatted I/O for the LBM engine.
  *
- * The TPU-native equivalent of the reference's C host I/O layer
- * (write_values / obstacle loader, /root/reference/d2q9-bgk.c:571-586 and
- * :772-856): the compute path lives on the TPU, but formatting a
+ * The equivalent of the reference's C host I/O layer (write_values /
+ * obstacle loader, d2q9-bgk.c:571-586 and :772-856): the compute path
+ * lives on the accelerator, but formatting a
  * 1M-line final_state.dat (1024x1024 grid ~ 70 MB of text) is host work
  * where native code is ~10x faster than Python string formatting.
  *
@@ -320,7 +320,7 @@ static PyMethodDef methods[] = {
 
 static struct PyModuleDef module = {
     PyModuleDef_HEAD_INIT, "lbmio",
-    "native formatted I/O for the TPU LBM engine", -1, methods,
+    "native formatted I/O for the LBM engine", -1, methods,
 };
 
 PyMODINIT_FUNC

@@ -4,7 +4,7 @@ Parity target: the 7-line ``.params`` text format consumed by the reference
 host program (``/root/reference/d2q9-bgk.c:466-492``): ``nx, ny, maxIters,
 reynolds_dim, density, accel, omega`` — one value per line, in that order.
 
-TPU-first note: everything in here is *static* configuration.  All scalars
+Design note: everything in here is *static* configuration.  All scalars
 become closure constants of the jitted step function, which is the JAX analog
 of the reference's per-grid OpenCL ``-D NX=... -D OMEGA=...`` JIT
 specialization (``d2q9-bgk.c:639-663``): changing the grid or the physics

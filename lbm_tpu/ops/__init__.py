@@ -1,4 +1,4 @@
-"""Device ops: D2Q9 lattice constants, jnp reference step, fused Pallas step."""
+"""Device ops: D2Q9 lattice constants, the jnp step, the Triton GPU step."""
 
 from lbm_tpu.ops.lattice import CX, CY, NSPEEDS, OPPOSITE, WEIGHTS
 from lbm_tpu.ops.reference import (

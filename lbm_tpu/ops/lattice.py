@@ -7,7 +7,7 @@ d2q9-bgk.c:7-13``)::
     3 0 1
     7 4 8
 
-with +x east (index ``jj``/lanes) and +y north (index ``ii``/sublanes).
+with +x east (index ``jj``, the contiguous axis) and +y north (index ``ii``).
 """
 
 from __future__ import annotations

@@ -1,1 +1,1 @@
-"""Multi-chip spatial sharding over a JAX device mesh."""
+"""Multi-device spatial sharding over a JAX device mesh."""

@@ -5,8 +5,6 @@ double-buffering for race freedom.  JAX's purity makes the aliasing race
 impossible by construction; what remains useful:
 
 * :func:`nan_guard` — opt-in ``jax.debug_nans`` scope (the FP-trap analog).
-* :func:`interpret_kernels` — run all Pallas kernels in interpreter mode
-  (kernel-level debugging on any backend).
 * :func:`assert_mass_conserved` — the ``total_density`` invariant as an
   assertion helper for tests and long-run monitoring.
 """
@@ -30,15 +28,6 @@ def nan_guard():
         yield
     finally:
         jax.config.update("jax_debug_nans", prev)
-
-
-@contextlib.contextmanager
-def interpret_kernels():
-    """Force Pallas interpreter mode for every kernel in the scope."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        yield
 
 
 def assert_mass_conserved(

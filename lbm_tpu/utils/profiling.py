@@ -1,11 +1,11 @@
 """Profiling & perf accounting (reference aux subsystem 1, SURVEY §5.1).
 
 The reference's CPU era used TAU per-function profiles; its GPU era used
-wall-clock + derived GB/s in the report.  The TPU equivalents here:
+wall-clock + derived GB/s in the report.  The equivalents here:
 
 * :func:`trace` — context manager around ``jax.profiler`` producing a
   TensorBoard-loadable trace of the compiled step program.
-* :class:`PerfReport` — MLUPS and effective-HBM-bandwidth accounting from
+* :class:`PerfReport` — MLUPS and effective-memory-bandwidth accounting from
   a run (the GB/s figures the reference report derives by hand).
 """
 
@@ -16,12 +16,10 @@ import dataclasses
 
 import jax
 
-# Bytes touched per cell per kernel pass: read 9 f-planes + 1 mask plane,
-# write 9 f-planes, float32.  Chunked kernels (multi-step / temporal)
-# advance several timesteps per pass, so divide by ``steps_per_pass`` to
-# get the nominal per-timestep HBM traffic.
+# Bytes touched per cell per step by a single-pass step: read 9 f-planes
+# + 1 mask plane, write 9 f-planes, float32.
 BYTES_PER_CELL = (9 + 1 + 9) * 4
-FLOPS_PER_CELL = 140  # approximate VPU op count of the fused step
+FLOPS_PER_CELL = 140  # approximate arithmetic op count of the step
 
 
 @contextlib.contextmanager
@@ -39,10 +37,6 @@ class PerfReport:
     ny: int
     steps: int
     elapsed: float
-    # Timesteps advanced per kernel pass (the StepProgram ``chunk``): a
-    # temporal/multi-step kernel touches HBM once per K steps, so its real
-    # traffic is ~K x lower than the single-step kernel's.
-    steps_per_pass: int = 1
 
     @property
     def cell_updates(self) -> int:
@@ -64,10 +58,8 @@ class PerfReport:
 
     @property
     def effective_bandwidth_gbs(self) -> float:
-        """Nominal HBM bytes/s of the compiled kernel variant (ghost-slab
-        traffic of the chunked kernels, a few rows per pass, is ignored)."""
-        per_step = BYTES_PER_CELL / self.steps_per_pass
-        return self._rate(self.cell_updates * per_step) / 1e9
+        """Nominal device-memory bytes/s of a single-pass step."""
+        return self._rate(self.cell_updates * BYTES_PER_CELL) / 1e9
 
     @property
     def effective_gflops(self) -> float:
@@ -79,3 +71,42 @@ class PerfReport:
             f"{self.mlups:.0f} MLUPS, {self.effective_bandwidth_gbs:.0f} GB/s "
             f"effective, {self.effective_gflops:.0f} GFLOP/s"
         )
+
+
+NVIDIA_SMI_QUERY = [
+    "nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+]
+
+
+def parse_nvidia_smi(text: str) -> list[tuple[str, str]]:
+    """``name, power.limit`` CSV lines (one per card) -> [(name, limit)]."""
+    cards = []
+    for line in text.strip().splitlines():
+        name, sep, limit = line.rpartition(",")
+        if not sep:
+            raise ValueError(f"unexpected nvidia-smi line: {line!r}")
+        cards.append((name.strip(), limit.strip()))
+    return cards
+
+
+def device_report() -> dict:
+    """What a measurement ran on: JAX's platform, device kind and device
+    count, plus each card's name and power limit from ``nvidia-smi`` on a
+    GPU (a card may be set below its maximum power and then runs slower
+    under load, so every number is kept beside its limit)."""
+    import subprocess
+
+    devs = jax.devices()
+    report = {
+        "platform": devs[0].platform,
+        "kind": devs[0].device_kind,
+        "count": len(devs),
+    }
+    if report["platform"] == "gpu":
+        out = subprocess.run(
+            NVIDIA_SMI_QUERY, capture_output=True, text=True, check=True
+        ).stdout
+        report["cards"] = [
+            {"name": n, "power_limit": p} for n, p in parse_nvidia_smi(out)
+        ]
+    return report

@@ -5,7 +5,7 @@ standalone golden data for the test suite and (b) cross-check the fp32
 device paths at high precision.  Mirrors the reference pipeline
 (accelerate → pull-stream → collide/bounce-back → masked mean |u|,
 ``/root/reference/d2q9-bgk.c:128-132``) but shares no code with the jnp or
-Pallas implementations.  The scalar per-cell model in
+Triton implementations.  The scalar per-cell model in
 ``tests/numpy_model.py`` validates THIS module at tiny sizes in turn.
 """
 

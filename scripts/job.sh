@@ -3,7 +3,7 @@
 # PBS GPU job script: pin a device, run the 1024x1024 case 5x, log to a
 # timestamped output file).
 #
-# Usage: scripts/tpu_job.sh [device_index] [repeats]
+# Usage: scripts/job.sh [device_index] [repeats]
 set -euo pipefail
 
 DEVICE="${1:-0}"

@@ -87,40 +87,38 @@ def test_sharded_checkpoint_resume(tmp_path):
     assert ckpt.load(tmp_path).step == 30
 
 
-@pytest.mark.medium
-def test_sharded_temporal_2d_checkpoint_resume(tmp_path):
-    """Checkpoint/resume composes with the 2-D temporal path (segment
-    lengths must stay multiples of K; every=8 and the 14-step tail of 30
-    would not, so 30 -> crash at 16 -> resume uses K=2-compatible
-    segments throughout).  (Medium: test_sharded_checkpoint_resume keeps
-    the sharded checkpoint path fast-tier on the 1-D mesh.)"""
+@pytest.mark.parametrize("resume_mesh", [(2, 2), (4, 1), (2,)])
+def test_sharded_2d_checkpoint_resume(tmp_path, resume_mesh):
+    """Checkpoint/resume on a 2-D mesh: a run "crashed" at step 16 on a
+    2x2 mesh resumes bit-exactly, on the same 2-D mesh or on another
+    mesh shape (the per-shard snapshot reassembles the global state)."""
     import dataclasses
 
     import jax
 
-    from lbm_tpu.parallel.sharded import ShardedSimulator, default_mesh_2d
+    from lbm_tpu.parallel.sharded import (
+        ShardedSimulator,
+        default_mesh,
+        default_mesh_2d,
+    )
 
     if len(jax.devices()) < 4:
         pytest.skip("needs virtual devices")
-    params = dataclasses.replace(PARAMS, ny=32, nx=64, max_iters=32)
-    obstacles = channel_box(params.nx, params.ny)
+    params = dataclasses.replace(PARAMS, ny=32, nx=64, max_iters=30)
+    obstacles = channel_box(params.nx, params.ny, interior_col=33)
 
-    def sim():
-        return ShardedSimulator(
-            params,
-            obstacles,
-            mesh=default_mesh_2d(2, 2),
-            kernel="temporal",
-            interpret=True,
-            temporal_split=(8, 2),
-        )
+    def sim(shape):
+        mesh = (default_mesh(*shape) if len(shape) == 1
+                else default_mesh_2d(*shape))
+        return ShardedSimulator(params, obstacles, mesh=mesh)
 
-    cont = sim().run()
-    sim().run_checkpointed(tmp_path, every=8, max_iters=16)  # "crash"
-    res = sim().run_checkpointed(tmp_path, every=8)
+    cont = sim((2, 2)).run()
+    sim((2, 2)).run_checkpointed(tmp_path, every=8, max_iters=16)  # "crash"
+    res = sim(resume_mesh).run_checkpointed(tmp_path, every=8)
     np.testing.assert_array_equal(cont.f, res.f)
     np.testing.assert_allclose(cont.av_vels, res.av_vels, rtol=1e-5)
-    assert res.steps_per_pass == 2
+    assert res.steps_timed == 14
+    assert ckpt.load(tmp_path).step == 30
 
 
 def test_sharded_checkpoint_is_per_shard(tmp_path):
@@ -357,104 +355,6 @@ def test_v1_load_rejects_short_av(tmp_path):
         )
     with pytest.raises(ValueError, match="av stream has 5"):
         ckpt.load(tmp_path)
-
-
-# -- giant-grid carry-resident checkpointing ---------------------------------
-#
-# The real trigger is a grid where state readback exceeds HBM
-# (>= 12288^2); the machinery is exercised here on an interpret-mode
-# x-tiled miniature by shrinking the HBM budget to zero and routing
-# make_program to the miniature schedule.
-
-
-def _xtiled_carry_setup(monkeypatch):
-    import jax
-
-    from lbm_tpu import runtime
-    from lbm_tpu.geometry import free_cells_of
-    from lbm_tpu.ops.fused import build_temporal_xtiled_program
-    from lbm_tpu.ops.reference import init_cells, make_step_fn
-
-    params = LBMParams(64, 16, 8, 10, 0.1, 0.01, 1.85)
-    obstacles = channel_box(64, 16, interior_row=9)
-    fcinv = np.float32(1.0 / free_cells_of(obstacles))
-    prog = build_temporal_xtiled_program(
-        params, obstacles, fcinv, by=4, ksteps=2, px=4, interpret=True
-    )
-    monkeypatch.setattr(runtime, "_HBM_BUDGET_GIB", 0.0)
-    monkeypatch.setattr(runtime, "make_program", lambda *a, **k: prog)
-
-    ref = jax.jit(make_step_fn(params, obstacles, fcinv))
-    f = init_cells(params)
-    avs = []
-    for _ in range(8):
-        f, av = ref(f)
-        avs.append(float(av))
-    return params, obstacles, np.asarray(f), np.asarray(avs)
-
-
-@pytest.mark.medium
-def test_giant_grid_carry_checkpoint_matches_reference(tmp_path, monkeypatch):
-    """The carry-resident segment driver (selected when state readback
-    cannot fit HBM and the schedule provides checkpoint_io) must
-    reproduce the jnp reference run and leave resumable f-format
-    snapshots."""
-    params, obstacles, f_ref, avs_ref = _xtiled_carry_setup(monkeypatch)
-    sim = Simulator(params, obstacles, kernel="fused")
-    res = sim.run_checkpointed(tmp_path, every=4)
-    assert res.steps_per_pass == 2  # the x-tiled chunk, proving the path
-    np.testing.assert_allclose(res.av_vels, avs_ref, rtol=1e-5)
-    np.testing.assert_allclose(res.f, f_ref, rtol=1e-5, atol=1e-9)
-    saved = ckpt.load(tmp_path)
-    assert saved.step == 8 and saved.f.shape == (9, 16, 64)
-
-
-def test_giant_grid_carry_checkpoint_resume_bitexact(tmp_path, monkeypatch):
-    """Crash after one segment, resume: the host f<->carry roundtrip must
-    continue bit-exactly (dead pad lanes are the only carry difference,
-    and owned outputs never read them — same argument as init0 vs
-    init)."""
-    params, obstacles, _, _ = _xtiled_carry_setup(monkeypatch)
-    cont = Simulator(params, obstacles, kernel="fused").run_checkpointed(
-        tmp_path / "cont", every=4
-    )
-    sim = Simulator(params, obstacles, kernel="fused")
-    sim.run_checkpointed(tmp_path / "res", every=4, max_iters=4)  # "crash"
-    assert ckpt.load(tmp_path / "res").step == 4
-    res = sim.run_checkpointed(tmp_path / "res", every=4)
-    assert res.steps_timed == 4  # only the post-crash half ran
-    # The segment executable is cached across run_checkpointed calls on
-    # one Simulator (a giant-grid compile costs minutes): one program
-    # entry, one 4-step executable, reused by the resume.
-    assert len(sim._carry_exes) == 1
-    assert set(next(iter(sim._carry_exes.values()))) == {4}
-    np.testing.assert_array_equal(cont.f, res.f)
-    np.testing.assert_array_equal(cont.av_vels, res.av_vels)
-
-
-@pytest.mark.medium
-def test_giant_grid_carry_checkpoint_rejects_misaligned_resume(
-    tmp_path, monkeypatch
-):
-    """A foreign checkpoint at a step offset that is not K-aligned leaves
-    a tail the K-step-chunk schedule cannot reach; the error must name
-    the resume-offset cause (review finding: the old message blamed
-    `every`/max_iters, which can both be aligned)."""
-    from lbm_tpu.ops.reference import init_cells
-
-    params, obstacles, _, _ = _xtiled_carry_setup(monkeypatch)  # K = 2
-    ckpt.save(
-        tmp_path,
-        params,
-        obstacles,
-        3,  # not a multiple of K=2
-        np.asarray(init_cells(params)),
-        np.zeros(3, np.float32),
-    )
-    with pytest.raises(ValueError, match="resuming a checkpoint"):
-        Simulator(params, obstacles, kernel="fused").run_checkpointed(
-            tmp_path, every=4
-        )
 
 
 def test_sharded_load_accepts_nan_state(tmp_path):

@@ -3,6 +3,7 @@
 import dataclasses
 import json
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -157,108 +158,6 @@ def test_run_mesh_2d_flag(small_case, capsys):
     assert (small_case / "mesh2d" / "av_vels.dat").exists()
 
 
-def test_run_mesh_2d_temporal_split(small_case, capsys):
-    """--mesh + --temporal-split routes to the 2-D temporal Pallas kernel
-    (interpret mode on CPU) and reports the variant; the av_vels stream
-    matches the single-chip jnp run within fp32 regrouping noise."""
-    import jax
-
-    if len(jax.devices()) < 4:
-        pytest.skip("needs virtual devices")
-    rc = cli.main(
-        [
-            "run",
-            str(small_case / "input.params"),
-            str(small_case / "obstacles.dat"),
-            "--output-dir",
-            str(small_case / "mesh2dt"),
-            "--mesh",
-            "2x2",
-            "--kernel",
-            "temporal",
-            "--temporal-split",
-            "8x2",
-            "--max-iters",
-            "16",
-        ]
-    )
-    assert rc == 0
-    out = capsys.readouterr().out
-    assert "Kernel variant: temporal (steps/pass 2)" in out
-    assert "interpret mode" in out
-    got = np.loadtxt(small_case / "mesh2dt" / "av_vels.dat", usecols=[1])
-    cli.main(
-        [
-            "run",
-            str(small_case / "input.params"),
-            str(small_case / "obstacles.dat"),
-            "--output-dir",
-            str(small_case / "single"),
-            "--kernel",
-            "reference",
-            "--max-iters",
-            "16",
-        ]
-    )
-    want = np.loadtxt(small_case / "single" / "av_vels.dat", usecols=[1])
-    np.testing.assert_allclose(got, want, rtol=2e-4)
-
-
-def test_run_shards_temporal_split(small_case, capsys):
-    """--shards + --temporal-split drives the 1-D temporal sharded path."""
-    import jax
-
-    if len(jax.devices()) < 2:
-        pytest.skip("needs virtual devices")
-    rc = cli.main(
-        [
-            "run",
-            str(small_case / "input.params"),
-            str(small_case / "obstacles.dat"),
-            "--output-dir",
-            str(small_case / "sh1dt"),
-            "--shards",
-            "2",
-            "--temporal-split",
-            "8x2",
-            "--max-iters",
-            "16",
-        ]
-    )
-    assert rc == 0
-    out = capsys.readouterr().out
-    assert "Kernel variant: temporal (steps/pass 2)" in out
-    assert (small_case / "sh1dt" / "av_vels.dat").exists()
-
-
-def test_run_shards_temporal_split_xtiled(small_case, capsys):
-    """--temporal-split BYxKxPX drives the x-tiled local schedule through
-    the 1-D sharded path (PX column strips per shard)."""
-    import jax
-
-    if len(jax.devices()) < 2:
-        pytest.skip("needs virtual devices")
-    rc = cli.main(
-        [
-            "run",
-            str(small_case / "input.params"),
-            str(small_case / "obstacles.dat"),
-            "--output-dir",
-            str(small_case / "sh1dxt"),
-            "--shards",
-            "2",
-            "--temporal-split",
-            "8x2x2",
-            "--max-iters",
-            "16",
-        ]
-    )
-    assert rc == 0
-    out = capsys.readouterr().out
-    assert "Kernel variant: temporal (steps/pass 2)" in out
-    assert (small_case / "sh1dxt" / "av_vels.dat").exists()
-
-
 def test_run_mesh_checkpointed(small_case, capsys):
     """--mesh + --checkpoint-dir runs segmented over the 2-D mesh."""
     import jax
@@ -301,26 +200,12 @@ def test_mesh_flag_validation(small_case):
         cli.main(base + ["--mesh", "4"])
     with pytest.raises(SystemExit, match="positive"):
         cli.main(base + ["--mesh", "0x2"])
-    # --temporal-split is a sharded-path flag; silently ignoring it on a
-    # single-chip run would be the trap the loud-failure rule exists for.
-    with pytest.raises(SystemExit, match="--temporal-split"):
-        cli.main(base + ["--temporal-split", "128x8"])
-    # One component and four+ components both name the two accepted forms
-    # (not _parse_pair's two-component-only message).
-    with pytest.raises(SystemExit, match="BYxK or BYxKxPX"):
-        cli.main(base + ["--shards", "2", "--temporal-split", "banana"])
-    with pytest.raises(SystemExit, match="BYxK or BYxKxPX"):
-        cli.main(base + ["--shards", "2", "--temporal-split", "128x4x4x2"])
-    with pytest.raises(SystemExit, match="BYxK or BYxKxPX"):
-        cli.main(base + ["--shards", "2", "--temporal-split", "8x2x0"])
-    with pytest.raises(SystemExit, match="BYxK or BYxKxPX"):
-        cli.main(base + ["--shards", "2", "--temporal-split", "8x2xq"])
-    with pytest.raises(SystemExit, match="reference"):
-        cli.main(
-            base
-            + ["--shards", "2", "--kernel", "reference",
-               "--temporal-split", "8x2"]
-        )
+    # The sharded paths run the jnp step only; a kernel request there must
+    # fail loudly rather than be silently ignored.
+    with pytest.raises(SystemExit, match="--kernel"):
+        cli.main(base + ["--shards", "2", "--kernel", "triton"])
+    with pytest.raises(SystemExit, match="--kernel"):
+        cli.main(base + ["--mesh", "2x2", "--kernel", "triton"])
     with pytest.raises(SystemExit, match="--device"):
         cli.main(base + ["--mesh", "2x2", "--device", "0"])
 
@@ -586,36 +471,11 @@ def test_checker_empty_series(tmp_path):
         assert compare_files(ref_av_vels=str(a), av_vels=str(a))
 
 
-def test_compile_fallback_warns():
-    """A kernel variant that fails to compile must degrade LOUDLY: the
-    fallback chain still lands on a working schedule, but the user is
-    told which level failed (a silent degrade would hand back a multi-x
-    slower — or subtly different — variant with no indication)."""
-    import dataclasses
-    import warnings
-
-    from lbm_tpu.config import CANONICAL_PARAMS
-    from lbm_tpu.geometry import canonical_obstacles
-    from lbm_tpu.runtime import Simulator
-
-    params = dataclasses.replace(CANONICAL_PARAMS["128x128"], max_iters=8)
-    obs = canonical_obstacles("128x128")
-    # kernel="fused" on the CPU backend: the Pallas variants cannot
-    # compile (no interpret flag through Simulator), so the chain must
-    # fall through to the jnp path, warning at each failed level.
-    sim = Simulator(params, obs, kernel="fused")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        res = sim.run()
-    assert np.isfinite(res.av_vels).all()
-    msgs = [str(w.message) for w in caught]
-    assert any("failed to compile" in m for m in msgs), msgs
-
-
 def test_giant_grid_state_readback_warns(monkeypatch):
-    """Giant-grid state readback must warn BEFORE dispatch: the real
-    failure is a bare RESOURCE_EXHAUSTED surfacing at the next
-    device_get (docs/PERF.md capacity section), which names nothing."""
+    """State readback of a grid whose ~3.2x-f peak exceeds the device's
+    memory budget must warn BEFORE dispatch; with no budget known (a
+    device that reports no bytes_limit, and no LBM_HBM_GIB) the predicate
+    does not apply."""
     import dataclasses
     import warnings
 
@@ -624,25 +484,21 @@ def test_giant_grid_state_readback_warns(monkeypatch):
     from lbm_tpu.geometry import canonical_obstacles
     from lbm_tpu.runtime import Simulator, state_readback_fits
 
-    # Measured boundary: 8192^2 (f = 2.25 GiB) ran in state mode on the
-    # 16 GiB chip; 12288^2 (5.06 GiB) was rejected.
-    assert state_readback_fits(8192, 8192)
+    monkeypatch.delenv("LBM_HBM_GIB", raising=False)
+    assert runtime.hbm_budget_gib() is None
+    assert state_readback_fits(65536, 65536)  # no budget known
+    # f = 2.25 GiB at 8192^2 and 5.06 GiB at 12288^2.
+    assert state_readback_fits(8192, 8192, 12.0)
+    assert not state_readback_fits(12288, 12288, 12.0)
+    assert state_readback_fits(12288, 12288, 60.0)
+    monkeypatch.setenv("LBM_HBM_GIB", "12")
+    assert runtime.hbm_budget_gib() == 12.0
     assert not state_readback_fits(12288, 12288)
-    assert not state_readback_fits(16384, 16384)
-    # LBM_HBM_GIB overrides the budget chain (bigger-HBM devices) — both
-    # through an explicit hbm_budget_gib() and via the bare default.
-    monkeypatch.setenv("LBM_HBM_GIB", "64")
-    assert state_readback_fits(12288, 12288, runtime.hbm_budget_gib())
-    assert state_readback_fits(12288, 12288)
-    monkeypatch.delenv("LBM_HBM_GIB")
-    assert not state_readback_fits(
-        12288, 12288, runtime.hbm_budget_gib()
-    )
     # fields mode is exempt (its device payload is 3 fp16 planes):
     # exercise the wiring on a tiny grid by shrinking the budget.
     params = dataclasses.replace(CANONICAL_PARAMS["128x128"], max_iters=4)
     sim = Simulator(params, canonical_obstacles("128x128"), kernel="reference")
-    monkeypatch.setattr(runtime, "_HBM_BUDGET_GIB", 0.0)
+    monkeypatch.setenv("LBM_HBM_GIB", "0.0001")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         sim.compiled(readback="state")
@@ -650,6 +506,23 @@ def test_giant_grid_state_readback_warns(monkeypatch):
     msgs = [str(w.message) for w in caught]
     assert any("readback='fields'" in m for m in msgs), msgs
     assert sum("readback='fields'" in m for m in msgs) == 1  # state only
+
+
+def test_hbm_budget_reads_the_device_limit():
+    """The budget comes from the device's reported bytes_limit; a device
+    that reports none gives no budget (no assumed memory size)."""
+    from lbm_tpu import runtime
+
+    class Dev:
+        def __init__(self, stats):
+            self._stats = stats
+
+        def memory_stats(self):
+            return self._stats
+
+    assert runtime.hbm_budget_gib(Dev({"bytes_limit": 64 * 2**30})) == 64.0
+    assert runtime.hbm_budget_gib(Dev(None)) is None
+    assert runtime.hbm_budget_gib(Dev({})) is None
 
 
 def test_invalid_readback_mode_rejected():
@@ -729,7 +602,6 @@ def test_enable_compile_cache_env_contract(monkeypatch, tmp_path):
 
     prev_dir = jax.config.jax_compilation_cache_dir
     prev_min = jax.config.jax_persistent_cache_min_compile_time_secs
-    prev_tb = jax.config.jax_include_full_tracebacks_in_locations
     try:
         # A cache dir the embedding application already configured is
         # respected verbatim (no env, no re-point).
@@ -755,13 +627,69 @@ def test_enable_compile_cache_env_contract(monkeypatch, tmp_path):
         assert runtime.enable_compile_cache() == target
         assert jax.config.jax_compilation_cache_dir == target
 
-        # Default (no env, nothing pre-set): a per-user directory.
+        # Default (no env, nothing pre-set): the fixed in-checkout path.
         monkeypatch.setattr(runtime, "_COMPILE_CACHE_STATE", [])
         jax.config.update("jax_compilation_cache_dir", None)
         monkeypatch.delenv("LBM_COMPILE_CACHE")
-        resolved = runtime.enable_compile_cache()
-        assert resolved and resolved.endswith("lbm_tpu/xla".replace("/", os.sep))
+        assert runtime.enable_compile_cache() == runtime.DEFAULT_COMPILE_CACHE_DIR
     finally:
         jax.config.update("jax_compilation_cache_dir", prev_dir)
         jax.config.update("jax_persistent_cache_min_compile_time_secs", prev_min)
-        jax.config.update("jax_include_full_tracebacks_in_locations", prev_tb)
+
+
+def test_default_compile_cache_is_a_gitignored_dir_in_the_checkout():
+    from lbm_tpu import runtime
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    path = pathlib.Path(runtime.DEFAULT_COMPILE_CACHE_DIR)
+    assert path.parent == repo
+    ignored = (repo / ".gitignore").read_text().split()
+    assert f"{path.name}/" in ignored
+
+
+_CACHE_PROBE = """
+import dataclasses, json, jax
+import lbm_tpu
+from lbm_tpu import runtime
+p = dataclasses.replace(lbm_tpu.CANONICAL_PARAMS["128x128"], max_iters=3)
+sim = lbm_tpu.Simulator(p, lbm_tpu.canonical_obstacles("128x128"))
+sim.run()
+print(json.dumps([runtime.enable_compile_cache(),
+                  jax.config.jax_compilation_cache_dir]))
+"""
+
+
+@pytest.mark.parametrize("via", ["JAX_COMPILATION_CACHE_DIR", "LBM_COMPILE_CACHE"])
+def test_compile_cache_lands_where_the_environment_says(tmp_path, via):
+    """In a fresh process, ``JAX_COMPILATION_CACHE_DIR`` wins outright
+    (the code sets no other directory, even with LBM_COMPILE_CACHE also
+    set), and without it LBM_COMPILE_CACHE places the cache; either way
+    the compiled run's entries land there."""
+    import json
+    import subprocess
+    import sys
+
+    target = tmp_path / "cache"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_COMPILATION_CACHE_DIR", "LBM_COMPILE_CACHE")}
+    env.update(
+        JAX_PLATFORMS="cpu",
+        JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="0",
+        JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES="0",
+        PYTHONPATH=str(pathlib.Path(__file__).resolve().parent.parent),
+    )
+    env[via] = str(target)
+    if via == "JAX_COMPILATION_CACHE_DIR":
+        env["LBM_COMPILE_CACHE"] = str(tmp_path / "not_this")
+    out = subprocess.run(
+        [sys.executable, "-c", _CACHE_PROBE], env=env, cwd=tmp_path,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    resolved, configured = json.loads(out.stdout.strip().splitlines()[-1])
+    assert resolved == configured == str(target)
+    assert not (tmp_path / "not_this").exists()
+    if via == "JAX_COMPILATION_CACHE_DIR":
+        # The code left JAX's own minimum compile time (0 here) alone, so
+        # this tiny run's executables were written.
+        assert any(target.iterdir())

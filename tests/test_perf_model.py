@@ -1,33 +1,27 @@
-"""Pin the production step's per-cell VPU op count by TRACING the actual
-kernel math (``ops/fused._collide``), so the perf-model denominators —
-``tools/vpu_roofline.py``'s ``mix`` instruction blend and the roofline
-arithmetic in docs/PERF.md — are anchored to the code, not to a comment
+"""Pin the step's per-cell arithmetic op count by TRACING the kernel's
+collision math (``ops/triton_step.collide_planes``), so the perf-model
+constant in ``utils/profiling`` is anchored to the code, not to a comment
 that can drift when the collision math changes."""
 
 from __future__ import annotations
 
-import pathlib
-import sys
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from lbm_tpu.ops import fused
+from lbm_tpu.ops.triton_step import collide_planes
 
 
-def _per_cell_op_counts(by: int = 8, nx: int = 128) -> dict[str, float]:
+def _per_cell_op_counts(ty: int = 8, tx: int = 128) -> dict[str, float]:
     """Per-cell primitive-op counts of the collision stage (mask compare +
-    ``_collide`` + the masked-|u| reduction), from walking the jaxpr."""
+    ``collide_planes`` + the masked |u|), from walking the jaxpr."""
 
-    def step_math(planes, maskf):
-        fluid = maskf > jnp.float32(0.5)
-        return fused._collide(list(planes), fluid, 1.85)
+    def step_math(planes, fluid8):
+        return collide_planes(list(planes), fluid8 != 0, jnp.float32(1.85))
 
-    planes = [jnp.zeros((by, nx), jnp.float32)] * 9
-    maskf = jnp.zeros((by, nx), jnp.float32)
-    jaxpr = jax.make_jaxpr(step_math)(planes, maskf)
+    planes = [jnp.zeros((ty, tx), jnp.float32)] * 9
+    fluid8 = jnp.zeros((ty, tx), jnp.int8)
+    jaxpr = jax.make_jaxpr(step_math)(planes, fluid8)
 
     counts: dict[str, float] = {}
 
@@ -40,7 +34,7 @@ def _per_cell_op_counts(by: int = 8, nx: int = 128) -> dict[str, float]:
             shape = eqn.outvars[0].aval.shape
             n = int(np.prod(shape)) if shape else 1
             name = eqn.primitive.name
-            counts[name] = counts.get(name, 0.0) + n / (by * nx)
+            counts[name] = counts.get(name, 0.0) + n / (ty * tx)
 
     walk(jaxpr.jaxpr)
     return counts
@@ -48,41 +42,24 @@ def _per_cell_op_counts(by: int = 8, nx: int = 128) -> dict[str, float]:
 
 def test_collide_per_cell_op_count_is_pinned():
     """The traced per-cell blend of the collision stage.  If this fails
-    after a deliberate math change, update BOTH this pin and the ``mix``
-    body in tools/vpu_roofline.py (plus the docs/PERF.md roofline section
-    that divides by it)."""
+    after a deliberate math change, update this pin and
+    ``utils/profiling.FLOPS_PER_CELL``."""
     c = _per_cell_op_counts()
     arith = c.get("add", 0) + c.get("sub", 0) + c.get("mul", 0)
     assert (c["mul"], c["add"], c["sub"]) == (35, 31, 25)
     assert arith == 91
     assert c["select_n"] == 10  # 9 bounce-back wheres + the |u| mask
-    assert c["gt"] == 1  # fluid-mask compare
+    assert c["ne"] == 1  # fluid-mask compare
     assert c["div"] == 1  # 1/rho
     assert c["sqrt"] == 1  # |u|
-    # The roofline "mix" denominator: everything the VPU must issue per
-    # cell (broadcast excluded — layout, not ALU; reduce amortized).
-    issue_ops = arith + c["select_n"] + c["gt"] + c["div"] + c["sqrt"]
+    issue_ops = arith + c["select_n"] + c["ne"] + c["div"] + c["sqrt"]
     assert issue_ops == 104
-    assert c.get("reduce_sum", 0) < 0.01  # amortized over the block
-
-
-def test_vpu_roofline_mix_models_the_traced_blend():
-    """tools/vpu_roofline.py's synthetic ``mix`` must stay within 3% of
-    the traced per-cell issue count (104), so the measured mix ceiling is
-    a valid denominator for the production kernel's issue rate."""
-    sys.path.insert(
-        0, str(pathlib.Path(__file__).resolve().parent.parent / "tools")
-    )
-    import vpu_roofline
-
-    _, issues = vpu_roofline._build("mix", rows=8, unroll=1, inner=1, steps=1)
-    assert abs(issues - 104) / 104 < 0.03, issues
 
 
 def test_flops_per_cell_reporting_constant_is_sane():
     """utils/profiling.FLOPS_PER_CELL (the MLUPS->GFLOP/s conversion) must
-    bracket the traced collision count plus the schedule ops (6 lane
-    rolls, kick, mask widen) — between the pure-collide 104 and 1.5x it."""
+    bracket the traced collision count plus the streaming index math —
+    between the pure-collide 104 and 1.5x it."""
     from lbm_tpu.utils.profiling import FLOPS_PER_CELL
 
     assert 104 <= FLOPS_PER_CELL <= 156

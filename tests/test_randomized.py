@@ -54,15 +54,7 @@ def test_fp32_tracks_fp64_on_random_cases(seed):
     np.testing.assert_allclose(res.f, f64, rtol=5e-4, atol=1e-7)
 
 
-# ---------------------------------------------------------------------------
-# Randomized sweeps through the Pallas variants (interpret mode): the gate
-# algebra of the fused/temporal kernels must survive random geometry near
-# the body-force row ny-2, random physics and random (BY, K) splits — not
-# just the hand-built fixtures in test_fused.py.
-# ---------------------------------------------------------------------------
-
-
-def random_pallas_case(seed: int):
+def random_wall_case(seed: int):
     """Random case with an interior wall segment at/near the body-force
     row (rows ny-4 .. ny-2) — the geometry most likely to break the
     accelerate-gate algebra."""
@@ -87,216 +79,46 @@ def random_pallas_case(seed: int):
     return params, obstacles
 
 
-def _run_program(prog, params, iters):
-    import jax.numpy as jnp
-
-    from lbm_tpu.ops.reference import init_cells
-
-    assert iters % prog.chunk == 0
-    carry = prog.init(jnp.asarray(init_cells(params)))
-    avs = []
-    for _ in range(iters // prog.chunk):
-        carry, av = prog.step(carry)
-        avs.append(np.atleast_1d(np.asarray(av)))
-    return np.asarray(prog.final(carry)), np.concatenate(avs)
-
-
-def _assert_tracks_fp64(params, obstacles, f32, av32):
-    f64, av64 = run64(params, obstacles)
-    nz = av64 != 0
-    if nz.any():
-        pct = np.abs((av64[nz] - av32[nz]) / av64[nz]) * 100
-        assert pct.max() < 1.0, (params, pct.max())
-    np.testing.assert_allclose(f32, f64, rtol=5e-4, atol=1e-7)
-
-
-@pytest.mark.parametrize("seed", range(3))
-def test_fused_blocked_random(seed):
-    from lbm_tpu.ops.fused import build_fused_program
-
-    params, obstacles = random_pallas_case(seed)
-    rng = np.random.default_rng(seed)
-    divisors = [b for b in (4, 8, 16) if params.ny % b == 0 and b < params.ny]
-    by = int(rng.choice(divisors))
-    fcinv = np.float32(1.0 / free_cells_of(obstacles))
-    prog = build_fused_program(params, obstacles, fcinv, by, interpret=True)
-    f32, av32 = _run_program(prog, params, params.max_iters)
-    _assert_tracks_fp64(params, obstacles, f32, av32)
-
-
-# Seed 1 is the fast-tier representative: seed 0 happens to draw the
-# most expensive (grid, K) combo (~27 s alone on this 1-CPU box).
-@pytest.mark.parametrize(
-    "seed",
-    [
-        pytest.param(0, marks=pytest.mark.medium),
-        1,
-        pytest.param(2, marks=pytest.mark.medium),
-    ],
-)
-def test_temporal_random_by_k(seed):
-    from lbm_tpu.ops.fused import build_temporal_program
-
-    params, obstacles = random_pallas_case(seed + 50)
-    rng = np.random.default_rng(seed)
-    splits = [
-        (b, k)
-        for b in (4, 8, 16)
-        for k in (2, 4, 8)
-        if params.ny % b == 0
-        and params.ny // b >= 2
-        and 2 <= k <= b - 2
-        and params.max_iters % k == 0
-    ]
-    by, k = splits[int(rng.integers(len(splits)))]
-    fcinv = np.float32(1.0 / free_cells_of(obstacles))
-    prog = build_temporal_program(
-        params, obstacles, fcinv, by, k, interpret=True
-    )
-    f32, av32 = _run_program(prog, params, params.max_iters)
-    _assert_tracks_fp64(params, obstacles, f32, av32)
-
-
-@pytest.mark.parametrize("seed", [0, 2])
-def test_multi_step_random(seed):
-    from lbm_tpu.ops.fused import build_multi_step_program
-
-    params, obstacles = random_pallas_case(seed + 100)
-    rng = np.random.default_rng(seed)
-    chunk = int(rng.choice([c for c in (4, 8, 12) if params.max_iters % c == 0]))
-    fcinv = np.float32(1.0 / free_cells_of(obstacles))
-    prog = build_multi_step_program(
-        params, obstacles, fcinv, chunk, interpret=True
-    )
-    f32, av32 = _run_program(prog, params, params.max_iters)
-    _assert_tracks_fp64(params, obstacles, f32, av32)
-
-
 # ---------------------------------------------------------------------------
 # Randomized sweeps through the SHARDED paths: random geometry (including
-# walls landing on shard boundaries and near the body-force row), random
-# mesh sizes and kernel variants must reproduce the single-device run.
+# walls landing on shard boundaries and near the body-force row) and
+# random 1-D / 2-D mesh shapes must reproduce the single-device run.
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("seed", range(4))
-def test_sharded_random(seed):
-    import jax
-
-    from lbm_tpu.parallel.sharded import ShardedSimulator, default_mesh
-
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices (conftest XLA_FLAGS)")
-    params, obstacles = random_pallas_case(seed + 200)
-    rng = np.random.default_rng(seed)
-    shard_choices = [
-        n for n in (2, 4, 8) if params.ny % n == 0 and params.ny // n >= 8
+def _mesh_choices(params, two_d: bool):
+    if not two_d:
+        return [(n,) for n in (2, 4, 8) if params.ny % n == 0
+                and params.ny // n >= 8]
+    return [
+        (py, px) for py, px in ((2, 2), (2, 4), (4, 2), (1, 4), (8, 1))
+        if params.ny % py == 0 and params.ny // py >= 3
+        and params.nx % px == 0 and params.nx // px >= 2
     ]
-    n_shards = int(rng.choice(shard_choices))
-    kernel = str(rng.choice(["reference", "fused", "temporal"]))
-    single = Simulator(params, obstacles, kernel="reference").run()
-    sim = ShardedSimulator(
-        params,
-        obstacles,
-        mesh=default_mesh(n_shards),
-        kernel=kernel,
-        interpret=True,
-    )
-    try:
-        res = sim.run()
-    except ValueError as e:
-        # An explicit 'temporal' request may legitimately admit no valid
-        # (BY, K) split for this random grid; anything else — including
-        # a split-validation regression raising a DIFFERENT ValueError —
-        # is a bug, so match the one expected message exactly.
-        assert (
-            kernel == "temporal"
-            and "no valid temporal (BY, K) split" in str(e)
-        ), e
-        return
-    np.testing.assert_allclose(res.f, single.f, rtol=1e-5, atol=1e-9)
-    np.testing.assert_allclose(res.av_vels, single.av_vels, rtol=1e-4)
 
 
-@pytest.mark.parametrize(
-    "seed",
-    [
-        0,
-        pytest.param(1, marks=pytest.mark.medium),
-        pytest.param(2, marks=pytest.mark.medium),
-    ],
-)
-def test_sharded_temporal_2d_random(seed):
-    """Random geometry/physics through the 2-D temporal path (random
-    mesh shape, explicit lowering-valid split) vs single-device."""
+@pytest.mark.parametrize("two_d", [False, True], ids=["1d", "2d"])
+@pytest.mark.parametrize("seed", range(4))
+def test_sharded_random(seed, two_d):
     import jax
 
     from lbm_tpu.parallel.sharded import (
+        ShardedSimulator,
+        default_mesh,
         default_mesh_2d,
-        make_sharded_temporal_2d_run,
     )
-    from lbm_tpu.geometry import free_cells_of
-    from lbm_tpu.ops.reference import init_cells
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices (conftest XLA_FLAGS)")
-    rng = np.random.default_rng(seed + 400)
-    # Grids admitting (BY=8, K=2) with >= 2 blocks per y-shard and
-    # nxl >= K on every mesh shape below.
-    ny = int(rng.choice([32, 64]))
-    nx = int(rng.choice([64, 128]))
-    params = LBMParams(
-        nx,
-        ny,
-        24,
-        10,
-        float(rng.uniform(0.05, 0.2)),
-        float(rng.uniform(0.0, 0.01)),
-        float(rng.uniform(0.5, 1.9)),
-    )
-    obstacles = rng.random((ny, nx)) < rng.uniform(0.0, 0.1)
-    obstacles[:, 0] = obstacles[:, -1] = True
-    obstacles[int(rng.integers(ny - 4, ny - 1)), : nx // 2] = True
-    py, px = [(2, 2), (2, 4), (1, 4)][int(rng.integers(3))]
+    params, obstacles = random_wall_case(seed + 200)
+    rng = np.random.default_rng(seed)
+    choices = _mesh_choices(params, two_d)
+    shape = choices[int(rng.integers(len(choices)))]
+    mesh = default_mesh(*shape) if len(shape) == 1 else default_mesh_2d(*shape)
     single = Simulator(params, obstacles, kernel="reference").run()
-    fcinv = np.float32(1.0 / free_cells_of(obstacles))
-    run = make_sharded_temporal_2d_run(
-        params,
-        obstacles,
-        fcinv,
-        default_mesh_2d(py, px),
-        by=8,
-        ksteps=2,
-        interpret=True,
-    )
-    f_fin, avs = run(init_cells(params))
-    np.testing.assert_allclose(
-        np.asarray(f_fin), single.f, rtol=1e-5, atol=1e-9
-    )
-    # The av series is held to the single-chip TEMPORAL program (same
-    # internal-step algebra; only the reduction regroups across shards) —
-    # a far tighter bound than vs the jnp reference, whose fp-ordering
-    # gap is amplified by cancellation at random tiny av magnitudes.
-    from lbm_tpu.ops.fused import build_temporal_program
-
-    prog = build_temporal_program(
-        params, obstacles, fcinv, by=8, ksteps=2, interpret=True
-    )
-    carry = prog.init(init_cells(params))
-    avs_t = []
-    for _ in range(params.max_iters // prog.chunk):
-        carry, av = prog.step(carry)
-        avs_t.append(np.asarray(av))
-    np.testing.assert_array_equal(
-        np.asarray(f_fin), np.asarray(prog.final(carry))
-    )
-    avs_t = np.concatenate(avs_t)
-    nz = avs_t != 0
-    if nz.any():
-        # 1e-4: the cross-shard fp32 sum-regrouping noise floor sits near
-        # 3e-5 at small av magnitudes (measured in randomized soaks).
-        pct = np.abs((avs_t[nz] - np.asarray(avs)[nz]) / avs_t[nz])
-        assert pct.max() < 1e-4, pct.max()
+    res = ShardedSimulator(params, obstacles, mesh=mesh).run()
+    np.testing.assert_array_equal(res.f, single.f)
+    np.testing.assert_allclose(res.av_vels, single.av_vels, rtol=1e-4)
 
 
 @pytest.mark.parametrize("seed", [1, 3])

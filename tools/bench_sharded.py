@@ -1,25 +1,21 @@
 #!/usr/bin/env python3
-"""Weak-scaling benchmark: the BASELINE.json configs[4] case — a 4096x4096
-grid sharded over a v5e-8 mesh with halo exchange over ICI.
+"""Weak-scaling benchmark: the BASELINE.json configs[4] case — a grid
+sharded over a device mesh with per-step halo exchange.
 
-Builds the case, runs the sharded path (Pallas kernels on TPU, jnp
-elsewhere) on a 1-D row mesh or a 2-D rows x cols mesh, and reports total
-+ per-chip MLUPS and the ICI halo traffic per step.  Timing excludes the
-device->host readback (the weak-scaling metric is sustained on-chip step
-rate; the ~576 MB f readback at 4096^2 is a one-time cost dominated by
-the host link, reported separately).
-
-One command, ready for real multi-chip hardware:
+Builds the case, runs the sharded jnp path on a 1-D row mesh or a 2-D
+rows x cols mesh, and reports total + per-device MLUPS and the halo
+traffic per step.  Timing excludes the device->host readback (the
+weak-scaling metric is the sustained on-device step rate).  The JSON line
+names the devices it ran on.
 
     python tools/bench_sharded.py                      # 4096^2, all devices
-    python tools/bench_sharded.py --shards 8 --max-iters 2000
-    python tools/bench_sharded.py --mesh 4x2 --kernel temporal
+    python tools/bench_sharded.py --shards 4 --ny 8192 --nx 8192
+    python tools/bench_sharded.py --mesh 2x2
 
 CPU smoke (the 8-virtual-device mesh used by the test suite):
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        python tools/bench_sharded.py --ny 256 --nx 256 --max-iters 50 \
-        --kernel reference
+        python tools/bench_sharded.py --ny 256 --nx 256 --max-iters 50
 """
 
 from __future__ import annotations
@@ -44,10 +40,6 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--ny", type=int, default=4096)
     parser.add_argument("--nx", type=int, default=4096)
     parser.add_argument("--max-iters", type=int, default=2000)
-    parser.add_argument("--kernel", default="auto",
-                        choices=["auto", "fused", "temporal", "reference"])
-    parser.add_argument("--temporal-split", default=None, metavar="BYxK",
-                        help="explicit temporal (BY, K), e.g. 64x4")
     parser.add_argument("--repeats", type=int, default=3)
     args = parser.parse_args(argv)
 
@@ -56,6 +48,7 @@ def main(argv: list[str] | None = None) -> int:
     from lbm_tpu.config import LBMParams
     from lbm_tpu.geometry import channel_box
     from lbm_tpu.ops.reference import init_cells
+    from lbm_tpu.utils.profiling import device_report
     from lbm_tpu.parallel.sharded import (
         AXIS,
         AXIS_X,
@@ -80,21 +73,7 @@ def main(argv: list[str] | None = None) -> int:
         mesh = default_mesh(n)
         in_spec = P(None, AXIS, None)
         mesh_desc = f"{n} shards"
-    split = None
-    if args.temporal_split:
-        by, k = (int(v) for v in args.temporal_split.lower().split("x"))
-        split = (by, k)
-    # Pallas kernels only execute on TPU; off-TPU (the CPU smoke mesh)
-    # run them in interpret mode so fused/temporal stay exercisable.
-    interpret = jax.default_backend() != "tpu"
-    sim = ShardedSimulator(
-        params,
-        obstacles,
-        mesh=mesh,
-        kernel=args.kernel,
-        temporal_split=split,
-        interpret=interpret,
-    )
+    sim = ShardedSimulator(params, obstacles, mesh=mesh)
     fn = sim.compiled(args.max_iters)
 
     sharding = NamedSharding(mesh, in_spec)
@@ -106,41 +85,33 @@ def main(argv: list[str] | None = None) -> int:
     for _ in range(args.repeats):
         tic = time.perf_counter()
         f, av = fn(f)
-        jax.device_get(av[-1])  # sync on the scalar stream, not the 576 MB f
+        jax.device_get(av[-1])  # sync on the scalar stream, not f
         best = min(best, time.perf_counter() - tic)
 
     cells = params.nx * params.ny
     mlups = cells * args.max_iters / best / 1e6
-    chunk = sim.chunk(args.max_iters)  # >= 1 by contract
     # Halo traffic per step per shard (nominal): one 9-speed boundary
-    # row/column each way per ring that actually crosses devices (the
-    # temporal paths move K-row/K-lane slabs every K steps — same bytes,
-    # K x fewer messages).  Degenerate rings (py==1 / px==1 / 1 shard)
-    # self-wrap locally and move nothing over ICI.  The Pallas 2-D paths
-    # exchange rows at the PADDED tile width (nxl + 128); the x strips
-    # carry their 2K-row y extensions.
-    variant = sim.variant(args.max_iters)  # what the chain actually ran
+    # row/column each way per ring that actually crosses devices.
+    # Degenerate rings (py==1 / px==1 / 1 shard) self-wrap locally.
     if args.mesh:
         nyl, nxl = params.ny // py, params.nx // px
-        row_w = nxl if variant == "reference" else nxl + 128
-        y_bytes = 0 if py == 1 else 2 * 9 * 4 * row_w
-        x_bytes = 0 if px == 1 else 2 * 9 * 4 * (nyl + 2 * chunk)
-        ici_bytes_per_step = y_bytes + x_bytes
+        y_bytes = 0 if py == 1 else 2 * 9 * 4 * nxl
+        x_bytes = 0 if px == 1 else 2 * 9 * 4 * (nyl + 2)
+        halo_bytes_per_step = y_bytes + x_bytes
     else:
-        ici_bytes_per_step = 0 if n == 1 else 2 * 9 * params.nx * 4
+        halo_bytes_per_step = 0 if n == 1 else 2 * 9 * params.nx * 4
     print(
         json.dumps(
             {
                 "metric": f"weak-scaling {params.ny}x{params.nx} over {mesh_desc}",
                 "value": round(mlups / n, 1),
-                "unit": "MLUPS/chip",
+                "unit": "MLUPS/device",
                 "total_mlups": round(mlups, 1),
                 "us_per_step": round(best / args.max_iters * 1e6, 2),
-                "ici_bytes_per_step_per_shard": ici_bytes_per_step,
+                "halo_bytes_per_step_per_shard": halo_bytes_per_step,
                 "shards": n,
                 "max_iters": args.max_iters,
-                "kernel": variant,
-                "chunk": chunk,
+                "device": device_report(),
                 "av_last": float(np.asarray(jax.device_get(av[-1]))),
             }
         )
